@@ -3,7 +3,8 @@
 
   1. diffuse sphere + quad light, 64x64 @ 16 spp, independent  (CPU-ok)
   2. Cornell, diffuse+GGX, NEE+MIS, 256x256 @ 128 spp, stratified
-  3. kiss full stack (clearcoat+sheen, normal map, textures, thin lens) 512^2
+  3. kiss full stack (clearcoat+sheen, normal map, textures, thin lens) 512^2;
+     lookdev_scene() is the same frame at 1080p with 36,876 faces
   4. con-2: pmj02bn + terminator + regularization + env light, 1080p
   5. inverse rendering: recover roughness/albedo from a target
 
@@ -53,6 +54,53 @@ def make_sphere(center, radius, n_theta=24, n_phi=48):
     )
 
 
+def lookdev_scene(
+    width=1920, height=1080, spp=4, max_depth=5, seed=0,
+    n_theta=97, n_phi=96,
+):
+    """Config 3, the look-dev frame: two kiss spheres in a Cornell box,
+    one with a seeded image texture (clearcoat + sheen), one under a
+    seeded normal map, seen through a thin-lens camera. The default
+    tessellation gives 2 x 96 x 96 x 2 + 12 = 36,876 faces, the size of
+    the reference's 36,378-face hero frame."""
+    import scenes
+    from kazen_tpu.scene import description as D
+
+    rng = np.random.default_rng(seed)
+    checker = np.full((64, 64, 3), 0.15, np.float32)
+    checker[::8, :] = 1.0
+    checker[:, ::8] = 1.0
+    checker *= (0.6 + 0.4 * rng.random((8, 8, 3))).repeat(8, 0).repeat(8, 1)
+    bump = np.full((32, 32, 3), (0.5, 0.5, 1.0), np.float32)
+    bump[:, :, :2] += 0.2 * (rng.random((32, 32, 2)) - 0.5)
+    sphere = make_sphere([-0.4, 0.6, 0.2], 0.6, n_theta, n_phi)
+    sphere.bsdf = D.KazenStandard(
+        base_color=D.ImageTexture(data=checker, colorspace="linear"),
+        roughness=D.ConstantTexture((0.25,) * 3),
+        metallic=D.ConstantTexture((0.4,) * 3),
+        clearcoat=0.8,
+        sheen=0.5,
+    )
+    sphere2 = make_sphere([0.6, 0.4, -0.2], 0.4, n_theta, n_phi)
+    sphere2.bsdf = D.NormalMap(
+        nested=D.KazenStandard(
+            base_color=D.ConstantTexture((0.8, 0.3, 0.2)),
+            roughness=D.ConstantTexture((0.15,) * 3),
+        ),
+        normals=D.ImageTexture(data=bump, colorspace="linear"),
+    )
+    sc = scenes.cornell_box(
+        width=width, height=height, spp=spp, max_depth=max_depth,
+        extra_meshes=[sphere, sphere2],
+    )
+    sc.camera = D.ThinlensCamera(
+        width=width, height=height, fov=60.0,
+        to_world=D.lookat([0, 1, -2.5], [0, 1, 0], [0, 1, 0]),
+        aperture_radius=0.05, focus_distance=2.4,
+    )
+    return sc
+
+
 def config_scene(n, spp=None):
     import scenes
     from kazen_tpu.scene import description as D
@@ -72,37 +120,7 @@ def config_scene(n, spp=None):
             extra_meshes=[sphere],
         )
     if n == 3:
-        checker = np.zeros((64, 64, 3), np.float32)
-        checker[::8, :] = 1.0
-        checker[:, ::8] = 1.0
-        bump = np.full((32, 32, 3), (0.5, 0.5, 1.0), np.float32)
-        bump[::4, :, 0] = 0.7
-        sphere = make_sphere([-0.4, 0.6, 0.2], 0.6)
-        sphere.bsdf = D.KazenStandard(
-            base_color=D.ImageTexture(data=checker, colorspace="linear"),
-            roughness=D.ConstantTexture((0.25,) * 3),
-            metallic=D.ConstantTexture((0.4,) * 3),
-            clearcoat=0.8,
-            sheen=0.5,
-        )
-        sphere2 = make_sphere([0.6, 0.4, -0.2], 0.4)
-        sphere2.bsdf = D.NormalMap(
-            nested=D.KazenStandard(
-                base_color=D.ConstantTexture((0.8, 0.3, 0.2)),
-                roughness=D.ConstantTexture((0.15,) * 3),
-            ),
-            normals=D.ImageTexture(data=bump, colorspace="linear"),
-        )
-        sc = scenes.cornell_box(
-            width=512, height=512, spp=spp or 64,
-            extra_meshes=[sphere, sphere2],
-        )
-        sc.camera = D.ThinlensCamera(
-            width=512, height=512, fov=60.0,
-            to_world=D.lookat([0, 1, -2.5], [0, 1, 0], [0, 1, 0]),
-            aperture_radius=0.05, focus_distance=2.4,
-        )
-        return sc
+        return lookdev_scene(512, 512, spp=spp or 64, n_theta=24, n_phi=48)
     if n == 4:
         env = np.zeros((32, 64, 3), np.float32)
         env[:12] = (0.3, 0.5, 0.9)  # sky

@@ -1,14 +1,13 @@
 """BVH: host-side binned-SAH build + flattened, stackless traversal.
 
 This replaces the reference's Embree3 dependency (accel.cpp:25-110, SURVEY
-§2.2) with a TPU-native design:
+§2.2):
 
 * Build (numpy, at scene-compile time): recursive binned SAH (16 bins over
   the centroid extent's widest axis, leaf <= 4 prims), flattened in DFS
   order with *escape links*: ``skip[i]`` is the node to visit when node i's
   box is missed (or after a leaf) -- the classic threaded layout that makes
-  traversal a single while-loop with no per-lane stack, which is what maps
-  onto TPU vector lanes.
+  traversal a single while-loop with no per-lane stack.
 
 * Traversal (pure jnp, under jit): every ray carries a node cursor; each
   iteration does one AABB slab test (bbox.h:316-343 semantics) plus up to
@@ -16,7 +15,8 @@ This replaces the reference's Embree3 dependency (accel.cpp:25-110, SURVEY
   ``cursor+1`` (enter) or ``skip`` (miss/after-leaf). The loop runs until
   every lane has walked off the end. Rays prune with their current best t.
 
-The production TPU path is the fused cluster-trace kernel (accel/cluster_trace.py).
+On the GPU the same walk runs per ray as a Pallas kernel
+(accel/bvh_kernel.py); accel/backend.py chooses between the two.
 """
 from __future__ import annotations
 
@@ -46,6 +46,50 @@ class BVHArrays(NamedTuple):
     tri_p0: jnp.ndarray  # (F, 3)
     tri_e1: jnp.ndarray  # (F, 3)
     tri_e2: jnp.ndarray  # (F, 3)
+    # the same tables packed for the GPU walk (accel/bvh_kernel.py), made
+    # once here: (M * NODE_W,) node rows [bmin xyz, bmax xyz, skip,
+    # prim_offset | prim_count << COUNT_SHIFT], the two integer words
+    # stored as their bit patterns, and (F * TRI_W,) triangle rows
+    # [p0 xyz, e1 xyz, e2 xyz] in primitive order
+    packed_nodes: jnp.ndarray
+    packed_tris: jnp.ndarray
+
+
+NODE_W = 8
+TRI_W = 9
+COUNT_SHIFT = 28  # prim_count <= LEAF_SIZE fits above a 28-bit offset
+
+
+def _arrays(bmin, bmax, skip, poff, pcnt, pfaces, p0, p1, p2) -> BVHArrays:
+    """Device BVHArrays from the numpy node table, leaf order and
+    per-face vertices."""
+    bmin = np.asarray(bmin, np.float32)
+    bmax = np.asarray(bmax, np.float32)
+    skip = np.asarray(skip, np.int32)
+    poff = np.asarray(poff, np.int32)
+    pcnt = np.asarray(pcnt, np.int32)
+    pfaces = np.asarray(pfaces, np.int32)
+    tp0 = p0[pfaces]
+    te1 = p1[pfaces] - tp0
+    te2 = p2[pfaces] - tp0
+    ints = np.stack([skip, poff | (pcnt << COUNT_SHIFT)], -1).view(np.float32)
+    return BVHArrays(
+        bounds_min=jnp.asarray(bmin),
+        bounds_max=jnp.asarray(bmax),
+        skip=jnp.asarray(skip),
+        prim_offset=jnp.asarray(poff),
+        prim_count=jnp.asarray(pcnt),
+        prim_faces=jnp.asarray(pfaces),
+        tri_p0=jnp.asarray(tp0),
+        tri_e1=jnp.asarray(te1),
+        tri_e2=jnp.asarray(te2),
+        packed_nodes=jnp.asarray(
+            np.concatenate([bmin, bmax, ints], -1).reshape(-1)
+        ),
+        packed_tris=jnp.asarray(
+            np.concatenate([tp0, te1, te2], -1).reshape(-1)
+        ),
+    )
 
 
 def build_bvh(
@@ -65,29 +109,23 @@ def build_bvh(
     if nf == 0:
         raise ValueError("empty scene")
 
+    from ..utils.metrics import LOG
+
     if backend in ("auto", "native"):
         from . import native
 
         res = native.build(V, F, leaf_size)
         if res is not None:
-            bounds_min_n, bounds_max_n, skip_n, poff_n, pcnt_n, pfaces_n = res
-            p0_all = V[F[:, 0]]
-            p1_all = V[F[:, 1]]
-            p2_all = V[F[:, 2]]
-            tp0 = p0_all[pfaces_n]
-            return BVHArrays(
-                bounds_min=jnp.asarray(bounds_min_n),
-                bounds_max=jnp.asarray(bounds_max_n),
-                skip=jnp.asarray(skip_n),
-                prim_offset=jnp.asarray(poff_n),
-                prim_count=jnp.asarray(pcnt_n),
-                prim_faces=jnp.asarray(pfaces_n),
-                tri_p0=jnp.asarray(tp0),
-                tri_e1=jnp.asarray(p1_all[pfaces_n] - tp0),
-                tri_e2=jnp.asarray(p2_all[pfaces_n] - tp0),
-            )
+            LOG(f"BVH build: native builder, {nf} faces")
+            return _arrays(*res, V[F[:, 0]], V[F[:, 1]], V[F[:, 2]])
         if backend == "native":
-            raise RuntimeError("native BVH builder unavailable")
+            raise RuntimeError(
+                f"native BVH builder unavailable ({native.reason})"
+            )
+        LOG(
+            f"BVH build: numpy builder, {nf} faces (native builder "
+            f"unavailable: {native.reason})"
+        )
 
     p0 = V[F[:, 0]]
     p1 = V[F[:, 1]]
@@ -163,20 +201,9 @@ def build_bvh(
 
     emit(np.arange(nf, dtype=np.int32))
 
-    prim_faces = np.asarray(prim_faces, np.int32)
-    tp0 = p0[prim_faces]
-    te1 = p1[prim_faces] - tp0
-    te2 = p2[prim_faces] - tp0
-    return BVHArrays(
-        bounds_min=jnp.asarray(np.asarray(bounds_min, np.float32)),
-        bounds_max=jnp.asarray(np.asarray(bounds_max, np.float32)),
-        skip=jnp.asarray(np.asarray(skip, np.int32)),
-        prim_offset=jnp.asarray(np.asarray(prim_offset, np.int32)),
-        prim_count=jnp.asarray(np.asarray(prim_count, np.int32)),
-        prim_faces=jnp.asarray(prim_faces),
-        tri_p0=jnp.asarray(tp0),
-        tri_e1=jnp.asarray(te1),
-        tri_e2=jnp.asarray(te2),
+    return _arrays(
+        bounds_min, bounds_max, skip, prim_offset, prim_count, prim_faces,
+        p0, p1, p2,
     )
 
 
@@ -255,6 +282,12 @@ def intersect_bvh(scene, rays: Rays) -> Hit:
         jnp.zeros(n, bool),
     )
     _, _, face, _, _, found = jax.lax.while_loop(cond, body, init)
+    return hit_from_face(scene, rays, face, found)
+
+
+def hit_from_face(scene, rays: Rays, face, found) -> Hit:
+    """The Hit for a chosen face: (t, u, v) are recomputed in closed form
+    against it, so gradients flow exactly as in the brute-force oracle."""
     idx = scene.F[jnp.clip(face, 0, scene.F.shape[0] - 1)]
     p0 = scene.V[idx[:, 0]]
     t, u, v, _ = _mt_pre(

@@ -6,8 +6,9 @@ It defines the u/v/t conventions the shading stages expect
 (hit = (1-u-v)p0 + u p1 + v p2) and is used for small scenes and as the
 ground truth the BVH traversal is tested against.
 
-The production path is ``accel.bvh`` (flattened BVH + stackless traversal).
-Both produce the same ``Hit`` record.
+The production path is the flattened BVH with stackless traversal
+(``accel.bvh``, and ``accel.bvh_kernel`` on the GPU). All produce the same
+``Hit`` record.
 """
 from __future__ import annotations
 
@@ -62,9 +63,7 @@ def intersect_brute(scene, rays: Rays) -> Hit:
     """All-faces nearest-hit intersection; O(N*F), oracle/testing path.
 
     Implemented as a scan over faces keeping (N,)-shaped running best-hit
-    state: every intermediate stays a well-tiled (N,) / (N, 3) array. The
-    (N, F) broadcast form gets its minor dimension padded to 128 by TPU
-    tiling and is an order of magnitude slower.
+    state, so memory stays O(N) instead of the (N, F) broadcast form's.
     """
     p0 = scene.V[scene.F[:, 0]]  # (F, 3)
     e1 = scene.V[scene.F[:, 1]] - p0

@@ -1,12 +1,14 @@
 """ctypes loader for the native binned-SAH BVH builder.
 
-Compiles bvh_builder.cpp on first use (g++, cached as libbvh.so next to the
-source); falls back cleanly when no compiler is available -- accel/bvh.py
-then uses the numpy builder.
+Compiles the committed bvh_builder.cpp on first use with g++ into
+``build/libbvh-<source hash>.so`` beside it (``build/`` is gitignored), so
+a changed source never loads a stale library. Without a compiler it
+returns None and accel/bvh.py uses the numpy builder; ``reason`` says why.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from typing import Optional, Tuple
@@ -15,27 +17,35 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "bvh_builder.cpp")
-_LIB = os.path.join(_DIR, "libbvh.so")
 
 _lib = None
 _tried = False
+reason = ""  # why the native builder is unavailable ("" when it loaded)
+
+
+def _lib_path() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_DIR, "build", f"libbvh-{digest}.so")
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, reason
     if _tried:
         return _lib
     _tried = True
     try:
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(
-            _SRC
-        ):
+        path = _lib_path()
+        if not os.path.exists(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB, _SRC],
+                ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC],
                 check=True,
                 capture_output=True,
             )
-        lib = ctypes.CDLL(_LIB)
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
         lib.bvh_build.restype = ctypes.c_void_p
         lib.bvh_build.argtypes = [
             ctypes.POINTER(ctypes.c_float),
@@ -50,7 +60,8 @@ def _load() -> Optional[ctypes.CDLL]:
         ] * 2 + [ctypes.POINTER(ctypes.c_int32)] * 4
         lib.bvh_free.argtypes = [ctypes.c_void_p]
         _lib = lib
-    except Exception:
+    except (OSError, subprocess.CalledProcessError) as e:
+        reason = f"{type(e).__name__}: {e}"
         _lib = None
     return _lib
 

@@ -9,7 +9,7 @@ import time
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="kazen-tpu")
+    ap = argparse.ArgumentParser(prog="kazen")
     ap.add_argument("scene", help="scene XML file")
     ap.add_argument("-o", "--output", default=None, help="output PNG/EXR path")
     ap.add_argument("--spp", type=int, default=None, help="override sample count")
@@ -29,6 +29,9 @@ def main(argv=None):
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from ..scene.xml_io import load_xml
     from ..scene.compiler import compile_scene
     from ..film import io as img_io
@@ -37,7 +40,7 @@ def main(argv=None):
     scene = load_xml(args.scene)
     arrays, static = compile_scene(scene)
     print(
-        f"[kazen-tpu] compiled scene: {int(arrays.F.shape[0])} faces, "
+        f"[kazen] compiled scene: {int(arrays.F.shape[0])} faces, "
         f"{static.num_lights} lights, {static.num_materials} materials, "
         f"{static.width}x{static.height} @ {static.sample_count} spp "
         f"({time.time() - t0:.2f}s)",
@@ -66,7 +69,7 @@ def main(argv=None):
     spp = args.spp or static.sample_count
     mps = static.width * static.height * spp / dt
     print(
-        f"[kazen-tpu] rendered in {dt:.2f}s "
+        f"[kazen] rendered in {dt:.2f}s "
         f"({mps / 1e6:.2f} Mpixel-samples/s)",
         file=sys.stderr,
     )
@@ -76,7 +79,7 @@ def main(argv=None):
         img_io.save_exr(out, img)
     else:
         img_io.save_png(out, img)
-    print(f"[kazen-tpu] wrote {out}", file=sys.stderr)
+    print(f"[kazen] wrote {out}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 The reference's DiscretePDF is an append/normalize/sample CDF table with
 binary search (dpdf.h:99-104). Here the CDF is a device array built once at
 scene-compile time; sampling is a vectorized ``searchsorted`` gather, which
-is the TPU-native form (no per-sample mutation, O(log n) per lane).
+is the vectorized form (no per-sample mutation, O(log n) per lane).
 """
 from __future__ import annotations
 

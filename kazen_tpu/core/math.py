@@ -3,7 +3,7 @@
 Pure jnp functions over arrays whose last axis is the vector axis, replacing
 the reference's Eigen scalar types (vector.h, frame.h, common.cpp:396-538).
 Everything is differentiable and written branch-free (jnp.where instead of
-scalar control flow) so it fuses under jit and maps onto the TPU VPU.
+scalar control flow) so it fuses under jit.
 """
 from __future__ import annotations
 
@@ -20,12 +20,11 @@ INV_FOURPI = 0.25 / jnp.pi
 def select_rows(idx, table, max_unroll: int = 40):
     """Exact small-table row fetch as a statically unrolled where-chain.
 
-    XLA TPU dynamic gathers cost ~2.6 ms *per op* at 518k lanes regardless
-    of table size; for small tables (materials, lights) a chain of
+    For small tables (materials, lights) a chain of
     ``where(idx == l, table[l], ...)`` fuses into the surrounding
-    elementwise work and is bit-exact (unlike a one-hot matmul, whose
-    default bf16 MXU passes round the fetched values). Falls back to a
-    plain gather above ``max_unroll`` rows."""
+    elementwise work instead of a separate gather, and is bit-exact.
+    Whether it beats a plain gather on the GPU is not measured yet.
+    Falls back to a plain gather above ``max_unroll`` rows."""
     L = table.shape[0]
     if L > max_unroll:
         return table[idx]

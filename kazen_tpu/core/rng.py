@@ -2,7 +2,7 @@
 
 The reference keys every random stream by ``Hash(pixel, seed)`` +
 ``pcg32.advance(sampleIdx*65536 + dim)`` (sampler.cpp:43-46), which is already
-counter-based and order-independent -- the property that lets a TPU wavefront
+counter-based and order-independent -- the property that lets a wavefront
 regenerate the identical stream for any pixel shard on any chip.
 
 This module ports, bit-exactly and branch-free over uint32 lanes:

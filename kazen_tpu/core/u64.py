@@ -1,9 +1,8 @@
 """Branch-free uint64 arithmetic on (hi, lo) uint32 pairs.
 
-JAX on TPU runs with 32-bit integers (x64 disabled); 64-bit emulation on the
-VPU is what we want anyway, so we represent a uint64 as a pair of uint32
-arrays ``(hi, lo)`` and implement exactly the operations the rendering RNG
-stack needs: add, full 64x64->low-64 multiply, xor, and logical shifts.
+JAX runs here with 32-bit integers (x64 disabled), so a uint64 is a pair
+of uint32 arrays ``(hi, lo)`` with exactly the operations the rendering
+RNG stack needs: add, full 64x64->low-64 multiply, xor, and logical shifts.
 
 These back the bit-exact ports of the reference's deterministic random
 streams (pcg32: /root/reference/include/kazen/pcg32.h, MurmurHash64A/MixBits:

@@ -4,6 +4,7 @@ perspective divide (transform.h:58-62); directions use the rotation part.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..core import math as km
@@ -11,14 +12,19 @@ from ..core import warp
 from ..accel.intersect import Rays
 
 
+# full f32 products: a GPU may otherwise run f32 matmuls in TF32, which
+# would move every camera ray by ~1e-3
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
 def _xform_point(m, p):
-    r = p @ m[:3, :3].T + m[:3, 3]
-    w = p @ m[3, :3].T + m[3, 3]
+    r = jnp.dot(p, m[:3, :3].T, precision=_HIGHEST) + m[:3, 3]
+    w = jnp.dot(p, m[3, :3], precision=_HIGHEST) + m[3, 3]
     return r / w[..., None]
 
 
 def _xform_vector(m, v):
-    return v @ m[:3, :3].T
+    return jnp.dot(v, m[:3, :3].T, precision=_HIGHEST)
 
 
 def sample_ray(scene, static, pixel_sample, aperture_sample) -> Rays:

@@ -1,4 +1,4 @@
-"""Top-level render driver: the TPU analog of renderer::render
+"""Top-level render driver: the analog of renderer::render
 (renderer.cpp:72-153). The spiral tile scheduler becomes a static pixel
 batch; spp becomes a host loop of jitted sample passes (one compile total --
 the per-sample pcg jump constants are traced inputs); the film is a single
@@ -22,10 +22,6 @@ from .path_mis import li_wavefront
 
 def li_fn_for(static):
     if static.integrator_kind == "path_mis":
-        if getattr(static, "use_megakernel", False):
-            from .megakernel import li_megakernel
-
-            return li_megakernel
         return li_wavefront
     from .simple import LI_FNS
 
@@ -65,7 +61,7 @@ def _render_pass(
     _, li, nrays = li_fn_for(static)(scene, static, spec, stream, rays)
     if grid_splat:
         return film_mod.splat_grid(static, film, jitter, li), nrays
-    return film_mod.splat(static, film, pixel_sample, li), nrays
+    return film_mod.splat(static, film, px, py, jitter, li), nrays
 
 
 def render(

@@ -1,6 +1,6 @@
 """Scene compiler: lowers the Python scene description to flat device arrays.
 
-This is the TPU analog of the reference's ``activate()`` cascade
+This is the analog of the reference's ``activate()`` cascade
 (parser.cpp:169-199, scene.cpp:29-52): it packs all meshes into one global
 triangle soup, builds per-light area CDFs (mesh.cpp:31-44), flattens the
 material graph into an SoA parameter table, packs textures into a flat texel
@@ -10,7 +10,6 @@ arrays are a jit-able pytree; statics are hashable config closed over by jit.
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -18,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..accel import backend
 from . import description as D
 
 # Material type ids (shade/bsdf.py dispatches on these)
@@ -135,19 +135,12 @@ class SceneArrays(NamedTuple):
     focus_distance: jnp.ndarray  # ()
     # acceleration structure (accel/bvh.py); None = brute-force intersection
     bvh: Optional[object] = None
-    # Fused Pallas cluster-trace tables (accel/cluster_trace.py); attached
-    # on TPU backends for BVH scenes -- path_mis.intersect_prepare/occlusion
-    # route through the Pallas kernels when present
-    trace_tables: Optional[object] = None
     # environment importance tables (built when Background.importance; see
     # _build_env_tables). Zeros-placeholders otherwise so the pytree shape
     # is stable.
     env_row_cdf: jnp.ndarray = None  # (Eh+1,) marginal CDF over rows
     env_col_cdf: jnp.ndarray = None  # (Eh, Ew+1) conditional CDF per row
     env_pdf: jnp.ndarray = None  # (Eh, Ew) solid-angle pdf per texel
-    # packed tables for the Pallas megakernel fast path (integrate/
-    # megakernel.py); None when the scene is outside its supported class
-    mega: Optional[object] = None
 
 
 @dataclass(frozen=True)
@@ -185,11 +178,6 @@ class SceneStatic:
     mip_textures: bool = False
     aniso_textures: bool = True
     pixel_cone: float = 0.0
-    # Pallas megakernel fast path (integrate/megakernel.py): enabled at
-    # scene-compile time when the scene is in the supported class AND the
-    # backend is a TPU (CPU tests keep the reference XLA wavefront).
-    use_megakernel: bool = False
-    mega_cfg: Optional[Tuple] = None  # hashable static kernel config
 
 
 def _load_mesh_arrays(m: D.Mesh):
@@ -278,6 +266,10 @@ class _TexturePacker:
     def add(self, tex: D.ImageTexture) -> int:
         if tex.data is not None:
             img = np.asarray(tex.data, np.float32)
+        elif tex.filename.lower().endswith(".exr"):
+            from ..film.io import load_exr
+
+            img = load_exr(tex.filename)
         else:
             import imageio.v3 as iio  # optional dependency; gated
 
@@ -684,43 +676,12 @@ def compile_scene(
     if use_bvh is None:
         use_bvh = len(F) > 64
     bvh = None
-    trace_tables = None
     if use_bvh:
         from ..accel.bvh import build_bvh
+        from ..utils.metrics import LOG
 
         bvh = build_bvh(V, F)
-        # Fused Pallas cluster-trace tables: the TPU hot path for ray
-        # traversal + shade prep (accel/cluster_trace.py). Cluster blocks
-        # live in HBM, so there is no table-size budget.
-        # KAZEN_PALLAS_TRACE=0/1 overrides the backend default.
-        import os as _os
-
-        _env = _os.environ.get("KAZEN_PALLAS_TRACE")
-        if _env is not None:
-            _enable_tt = _env not in ("0", "false", "")
-        else:
-            _enable_tt = jax.default_backend() not in ("cpu",)
-        if _enable_tt:
-            from ..accel.cluster_trace import pack_cluster_tables
-
-            lid_face = np.asarray(mesh_light, np.int32)[face_mesh]
-            if L:
-                lpv = np.asarray(light_primary[:L], bool)
-                lpv_face = np.where(
-                    lid_face >= 0, lpv[np.maximum(lid_face, 0)], False
-                )
-            else:
-                lpv_face = np.zeros(len(F), bool)
-            trace_tables = pack_cluster_tables(
-                V,
-                F,
-                face_shade,
-                lid_face,
-                lpv_face,
-                np.asarray(mesh_material, np.int32)[face_mesh],
-                np.asarray(mesh_has_normals, bool)[face_mesh],
-                np.asarray(mesh_has_uvs, bool)[face_mesh],
-            )
+        LOG(f"BVH walk for {len(F)} faces: {backend.trace_backend()}")
 
     tex_pool = packer.finish()
     has_comp = any(t >= 2 for t in packer.ttypes)
@@ -765,7 +726,6 @@ def compile_scene(
         aperture_radius=jnp.asarray(aperture, jnp.float32),
         focus_distance=jnp.asarray(focus, jnp.float32),
         bvh=bvh,
-        trace_tables=trace_tables,
         env_row_cdf=env_row_cdf,
         env_col_cdf=env_col_cdf,
         env_pdf=env_pdf,
@@ -803,54 +763,6 @@ def compile_scene(
         ),
     )
 
-    # Megakernel fast path: pack tables when the scene is in the supported
-    # class AND the packed tables fit the VMEM budget (pack_tables returns
-    # None otherwise); turn it on by default only on TPU backends
-    # (KAZEN_MEGAKERNEL=0/1 overrides).
-    from ..integrate import megakernel as mk
-    from ..utils.metrics import LOG
-
-    mk_ok, mk_reason = mk.supported_reason(arrays, static)
-    if mk_ok:
-        mega = mk.pack_tables(arrays, static)
-        if mega is not None:
-            import os
-
-            env = os.environ.get("KAZEN_MEGAKERNEL")
-            if env is not None:
-                enable = env not in ("0", "false", "")
-            else:
-                # default: megakernel only for brute-force-size scenes
-                # (its whole-pass fusion wins there: BENCH_r05 toy at
-                # ~168M rays/s whole-grid); BVH scenes go to the
-                # wavefront + Pallas packet trace, whose coherence-
-                # ordered walk is far faster on big meshes
-                enable = (
-                    jax.default_backend() not in ("cpu",)
-                    and len(F) <= mk.MAX_BRUTE
-                )
-            arrays = arrays._replace(mega=mega)
-            static = dataclasses.replace(
-                static,
-                use_megakernel=enable,
-                mega_cfg=mk.cfg_key(arrays, static),
-            )
-        else:
-            LOG(
-                "megakernel fast path declined: packed tables exceed the "
-                "VMEM budget; using the wavefront + cluster trace"
-            )
-    elif (
-        static.integrator_kind == "path_mis"
-        and len(F) <= mk.MAX_BRUTE
-    ):
-        # a small scene that would otherwise ride the fused fast path:
-        # make the fallback visible instead of a silent ~2x cliff
-        # (benchmarks/megakernel_cliff measurement, VERDICT r4 #8)
-        LOG(
-            f"megakernel fast path declined ({mk_reason}); using the "
-            "wavefront + cluster trace"
-        )
     return arrays, static
 
 

@@ -1,4 +1,4 @@
-"""Observability: per-pass render metrics and timing (the TPU analog of the
+"""Observability: per-pass render metrics and timing (the analog of the
 reference's Timer/LOG/progress stack, SURVEY §5).
 
 The reference logs wall-clock around BVH build, mesh load, and total render
@@ -100,7 +100,7 @@ def profiler_trace(log_dir: Optional[str]):
 def LOG(msg: str, stream=sys.stderr):
     """Timestamped log line (reference LOG(), common.h:451-454)."""
     stream.write(
-        f"[kazen-tpu {time.strftime('%H:%M:%S')}] {msg}\n"
+        f"[kazen {time.strftime('%H:%M:%S')}] {msg}\n"
     )
 
 
@@ -109,4 +109,4 @@ def timed(label: str, stream=sys.stderr):
     """Timer (timer.h) + LOG-style line."""
     t0 = time.time()
     yield
-    stream.write(f"[kazen-tpu] {label}: {(time.time() - t0) * 1000:.1f} ms\n")
+    stream.write(f"[kazen] {label}: {(time.time() - t0) * 1000:.1f} ms\n")

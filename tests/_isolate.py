@@ -1,9 +1,8 @@
 """Run a test in a fresh subprocess (fatal-crash isolation).
 
-Two test groups can kill the whole pytest process on this jaxlib (0.9.0):
-XLA:CPU collective rendezvous aborts on the 8-virtual-device mesh, and
-late-process megakernel compiles segfaulting in backend_compile (the same
-compile succeeds in a fresh process). The decorator below re-invokes
+Some tests can kill the whole pytest process on this jaxlib (0.9.0):
+XLA:CPU collective rendezvous aborts on the 8-virtual-device mesh. The
+decorator below re-invokes
 pytest for just the decorated test in a child process; the child sees
 KAZEN_SUBPROC=1 and runs the real body. Failures (including signals:
 abort/segfault) surface as ordinary assertion failures in the parent, so

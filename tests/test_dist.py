@@ -28,24 +28,19 @@ def test_distributed_matches_single():
     np.testing.assert_allclose(single, dist, atol=1e-5)
 
 
-def test_sample_sharded_matches_single():
+def test_sample_sharded_matches_single(kernel_walk):
     """pixels x sample-batches lane axis over shard_map (SURVEY §2.8's
-    sample-dimension sharding): the per-bounce wavefront re-sort runs
+    sample-dimension sharding), with every trace through the GPU walk
+    kernel (interpret mode): the per-bounce wavefront permute runs
     shard-local and the only collective is the film psum; the image must
     equal the serial render (counter-based streams are lane-placement
     independent)."""
-    import os
-
-    os.environ["KAZEN_PALLAS_TRACE"] = "1"
-    try:
-        scene = scenes.cornell_box(width=16, height=16, spp=4)
-        scene.meshes.append(
-            scenes.sphere_mesh((0.3, 0.5, 0.3), 0.35, nu=10, nv=10)
-        )
-        arrays, static = compile_scene(scene)
-        assert arrays.trace_tables is not None
-    finally:
-        del os.environ["KAZEN_PALLAS_TRACE"]
+    scene = scenes.cornell_box(width=16, height=16, spp=4)
+    scene.meshes.append(
+        scenes.sphere_mesh((0.3, 0.5, 0.3), 0.35, nu=10, nv=10)
+    )
+    arrays, static = compile_scene(scene)
+    assert arrays.bvh is not None
     single = np.asarray(render(arrays, static, spp=4))
     mesh = make_mesh()
     for batches in (2, 4):

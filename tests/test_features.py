@@ -160,7 +160,7 @@ def test_thinlens_depth_of_field():
 def test_splat_grid_band_matches_full():
     """Chunked row-band splat == whole-grid splat, bit-for-bit (the bench
     and chunked render paths accumulate bands; scatter splat was ~1s per
-    518k-lane chunk on TPU)."""
+    518k-lane chunk before)."""
     import jax.numpy as jnp
     import numpy as np
 

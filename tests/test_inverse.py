@@ -90,29 +90,19 @@ def test_recover_background_color():
     np.testing.assert_allclose(got, [0.8, 0.4, 0.1], atol=0.05)
 
 
-def _with_trace_tables(scene):
-    """Compile with the production trace-table path attached (shim kernels
-    on CPU): gradients then flow through prepare_from_rows' closed-form
-    recompute, i.e. the exact structure the TPU wavefront runs."""
-    import os
-
-    old = os.environ.get("KAZEN_PALLAS_TRACE")
-    os.environ["KAZEN_PALLAS_TRACE"] = "1"
-    try:
-        arrays, static = compile_scene(scene, use_bvh=True)
-    finally:
-        if old is None:
-            del os.environ["KAZEN_PALLAS_TRACE"]
-        else:
-            os.environ["KAZEN_PALLAS_TRACE"] = old
-    assert arrays.trace_tables is not None
+def _with_bvh(scene):
+    """Compile with a BVH: traces then go through the BVH walk and the
+    ordered wavefront's trace rows, and gradients flow through
+    prepare_from_rows' closed-form recompute -- the structure the GPU
+    path runs."""
+    arrays, static = compile_scene(scene, use_bvh=True)
+    assert arrays.bvh is not None
     return arrays, static
 
 
 def test_recover_texture_map_through_trace_path():
     """Recover an image texture (texel pool) from a target rendered with
-    the true texels -- through the trace-tables forward path (VERDICT r2
-    ask #8). The checker pattern makes per-texel gradients heterogeneous,
+    the true texels -- through the BVH trace-row forward path. The checker pattern makes per-texel gradients heterogeneous,
     so this exercises real spatial texture recovery, not a scalar."""
     rng = np.random.default_rng(7)
     true_tex = (0.25 + 0.6 * rng.random((8, 8, 3))).astype(np.float32)
@@ -122,7 +112,7 @@ def test_recover_texture_map_through_trace_path():
             data=true_tex, colorspace="linear"
         )),
     )
-    arrays, static = _with_trace_tables(scene)
+    arrays, static = _with_bvh(scene)
     target = render(arrays, static, spp=4)
 
     # start from flat gray texels
@@ -149,13 +139,13 @@ def test_recover_texture_map_through_trace_path():
 
 
 def test_recover_env_tint_through_trace_path():
-    """Recover the environment tint through escape rays on the
-    trace-tables forward path."""
+    """Recover the environment tint through escape rays on the BVH
+    trace-row forward path."""
     scene = scenes.cornell_box(
         width=12, height=12, spp=4, max_depth=3,
         background=D.Background(texture=D.ConstantTexture((0.7, 0.3, 0.15))),
     )
-    arrays, static = _with_trace_tables(scene)
+    arrays, static = _with_bvh(scene)
     target = render(arrays, static, spp=4)
     start = arrays._replace(bg_color=jnp.asarray([0.4, 0.4, 0.4]))
     res = optimize(

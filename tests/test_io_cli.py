@@ -1,6 +1,7 @@
 """XML import, image IO round-trips, checkpoint/resume, CLI."""
 import os
 import numpy as np
+import pytest
 
 import scenes
 from kazen_tpu.film import io as img_io
@@ -32,9 +33,18 @@ def test_png_write(tmp_path):
     img = np.random.default_rng(0).random((8, 8, 3)).astype(np.float32)
     p = str(tmp_path / "t.png")
     img_io.save_png(p, img)
-    from PIL import Image
+    assert img_io.load_png(p).shape == (8, 8, 3)
 
-    assert Image.open(p).size == (8, 8)
+
+def test_png_roundtrip(tmp_path):
+    """save_png writes the sRGB-tonemapped 8-bit pixels, and load_png
+    (zlib + struct, no imaging library) reads exactly those back."""
+    from kazen_tpu.film.film import to_srgb8
+
+    img = np.random.default_rng(3).random((5, 11, 3)).astype(np.float32) * 1.2
+    p = str(tmp_path / "t.png")
+    img_io.save_png(p, img)
+    np.testing.assert_array_equal(img_io.load_png(p), to_srgb8(img))
 
 
 def test_checkpoint_resume_identical(tmp_path):
@@ -138,16 +148,40 @@ def test_splat_grid_matches_scatter():
         jitter = jnp.asarray(r.random((n, 2), dtype=np.float32))
         value = jnp.asarray(r.random((n, 3), dtype=np.float32))
         ys, xs = np.meshgrid(np.arange(7), np.arange(9), indexing="ij")
-        ps = (
-            jnp.stack(
-                [jnp.asarray(xs.ravel()), jnp.asarray(ys.ravel())], -1
-            ).astype(jnp.float32)
-            + jitter
-        )
+        px = jnp.asarray(xs.ravel(), jnp.uint32)
+        py = jnp.asarray(ys.ravel(), jnp.uint32)
         film0 = film_mod.make_film(static)
-        a = film_mod.splat(static, film0, ps, value)
+        a = film_mod.splat(static, film0, px, py, jitter, value)
         b = film_mod.splat_grid(static, film0, jitter, value)
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5), kind
+
+
+@pytest.mark.parametrize("kind", ["box", "gaussian"])
+@pytest.mark.parametrize("jitter", [0.0, 2.0**-24, 1.0 - 2.0**-24])
+def test_splat_keeps_edge_samples_in_their_pixel(kind, jitter):
+    """A sample at x >= 1024 with jitter next to 0 or 1: px + jitter would
+    round to a pixel edge in f32. The lane-layout splat must still put
+    it where the grid splat does."""
+    import jax.numpy as jnp
+    from kazen_tpu.film import film as film_mod
+    from kazen_tpu.scene.compiler import compile_scene as _cs
+
+    w, h = 1600, 3
+    scene = scenes.cornell_box(width=w, height=h, spp=1)
+    scene.rfilter.kind = kind
+    _, static = _cs(scene, use_bvh=False)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    r = np.random.default_rng(7)
+    jit_ = r.random((h * w, 2), dtype=np.float32)
+    jit_[:, 0] = np.where(xs.ravel() >= 1024, np.float32(jitter), jit_[:, 0])
+    value = jnp.asarray(r.random((h * w, 3), dtype=np.float32))
+    film0 = film_mod.make_film(static)
+    a = film_mod.splat(
+        static, film0, jnp.asarray(xs.ravel(), jnp.uint32),
+        jnp.asarray(ys.ravel(), jnp.uint32), jnp.asarray(jit_), value,
+    )
+    b = film_mod.splat_grid(static, film0, jnp.asarray(jit_), value)
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6, atol=1e-6)
 
 
 def test_texture_graph_nodes():

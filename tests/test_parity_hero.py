@@ -5,15 +5,12 @@ class that matters: 36k faces, 3 area lights, kiss everywhere
 (scene/2022_q1/parameters/default_m0_r0.5.xml). These tests render the
 real XML at reduced resolution through
   (a) the scalar oracle transliteration (tests/oracle_renderer.py),
-  (b) the XLA wavefront (BVH walk backend, no trace tables),
-  (c) the cluster-trace path (Pallas shim on CPU; the Mosaic kernel
-      itself in the tpu-marked subprocess test)
+  (b) the wavefront with the XLA BVH walk,
+  (c) the wavefront with the GPU BVH walk kernel (interpret mode here)
 and assert pairwise bad-pixel rates, test_parity._compare style.
 """
 from _isolate import subprocess_isolated
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -25,18 +22,32 @@ pytestmark = pytest.mark.skipif(
 )
 
 
-def _hero(width, height, pallas):
+def _hero(width, height):
     from kazen_tpu.scene import xml_io
     from kazen_tpu.scene.compiler import compile_scene
 
     desc = xml_io.load_xml(HERO_XML)
     desc.camera.width = width
     desc.camera.height = height
-    os.environ["KAZEN_PALLAS_TRACE"] = "1" if pallas else "0"
-    try:
-        return compile_scene(desc)
-    finally:
-        del os.environ["KAZEN_PALLAS_TRACE"]
+    return compile_scene(desc)
+
+
+def _render_both(arrays, static, monkeypatch, spp=2):
+    """{False: XLA-walk image, True: kernel-walk image}."""
+    import functools
+
+    import jax
+
+    from kazen_tpu.accel import backend
+    from kazen_tpu.accel.bvh_kernel import intersect_bvh_kernel
+    from kazen_tpu.integrate.render import render
+
+    imgs = {False: np.asarray(render(arrays, static, spp=spp))}
+    walk = functools.partial(intersect_bvh_kernel, interpret=True)
+    monkeypatch.setattr(backend, "bvh_walk", lambda platform=None: walk)
+    jax.clear_caches()
+    imgs[True] = np.asarray(render(arrays, static, spp=spp))
+    return imgs
 
 
 def _bad_frac(a, b, atol):
@@ -46,17 +57,11 @@ def _bad_frac(a, b, atol):
 
 
 @subprocess_isolated
-def test_hero_wavefront_vs_cluster_trace_shim():
-    """(b) vs (c) at 96x54/2spp: the whole round-3/4 perf machinery
-    (split-bf16 MT tests, ordered wavefront, shared-order traces) against
-    the plain XLA BVH walk on the real content."""
-    from kazen_tpu.integrate.render import render
-
-    imgs = {}
-    for pallas in (False, True):
-        arrays, static = _hero(96, 54, pallas)
-        assert (arrays.trace_tables is not None) == pallas
-        imgs[pallas] = np.asarray(render(arrays, static, spp=2))
+def test_hero_kernel_walk_vs_xla_walk(monkeypatch):
+    """(b) vs (c) at 96x54/2spp: the GPU walk kernel against the plain
+    XLA BVH walk on the real content."""
+    arrays, static = _hero(96, 54)
+    imgs = _render_both(arrays, static, monkeypatch)
     assert np.isfinite(imgs[True]).all()
     assert imgs[True].mean() > 0.05
     bad, worst = _bad_frac(imgs[True], imgs[False], atol=2e-3)
@@ -78,7 +83,7 @@ def test_hero_oracle_parity():
 
     from kazen_tpu.integrate.render import render
 
-    arrays, static = _hero(16, 9, pallas=False)
+    arrays, static = _hero(16, 9)
     got = np.asarray(render(arrays, static, spp=2))
     want = OracleRenderer(arrays, static).render(spp=2)
     assert want.mean() > 0.05
@@ -87,79 +92,28 @@ def test_hero_oracle_parity():
     np.testing.assert_allclose(got.mean(), want.mean(), rtol=1e-3)
 
 
-@pytest.mark.slow
-@pytest.mark.tpu
-def test_hero_kernel_on_tpu_matches_shim():
-    """(c) on real hardware: the Mosaic cluster-trace kernel end-to-end on
-    the hero scene vs the CPU shim image."""
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = r"""
-import sys, os
-sys.path.insert(0, %r); sys.path.insert(0, %r)
-os.environ["KAZEN_PALLAS_TRACE"] = "1"
-import jax, numpy as np
-if jax.default_backend() == "cpu":
-    print("NO_TPU"); sys.exit(0)
-jax.config.update("jax_compilation_cache_dir", os.path.join(%r, ".jax_cache"))
-from kazen_tpu.scene import xml_io
-from kazen_tpu.scene.compiler import compile_scene
-from kazen_tpu.integrate.render import render
-desc = xml_io.load_xml(%r)
-desc.camera.width, desc.camera.height = 96, 54
-arrays, static = compile_scene(desc)
-img_tpu = np.asarray(render(arrays, static, spp=2))
-import kazen_tpu.accel.cluster_trace as ct
-ct._mode = lambda: "shim"
-img_shim = np.asarray(render(arrays, static, spp=2))
-rel = np.abs(img_tpu - img_shim) / np.maximum(np.abs(img_shim), 0.05)
-bad = (rel > 2e-3).mean()
-assert bad <= 0.002, (bad, rel.max())
-print("TPU_HERO_OK", float(img_tpu.mean()), float(bad))
-""" % (repo, os.path.join(repo, "tests"), repo, HERO_XML)
-    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
-    env.pop("XLA_FLAGS", None)
-    res = subprocess.run(
-        [sys.executable, "-c", code], env=env,
-        capture_output=True, text=True, timeout=1800,
-    )
-    out = res.stdout + res.stderr
-    if "NO_TPU" in out:
-        pytest.skip("no TPU backend reachable")
-    assert res.returncode == 0, out[-3000:]
-    assert "TPU_HERO_OK" in out
-
-
 WARMSTUDIO_XML = "/root/reference/scene/2022_q1/WarmStudio/WarmStudio.xml"
 
 
 @subprocess_isolated
-def test_warmstudio_end_to_end_parity():
+def test_warmstudio_end_to_end_parity(monkeypatch):
     """The reference's other showcase scene (WarmStudio.xml:1-56): three
     OBJ meshes (hand-rolled OBJ loader path), kiss + diffuse, an area
     light ARRAY mesh, mitchell filter -- the multi-mesh/OBJ/mitchell
     combination the parameter sweeps never exercise (VERDICT r4 #7).
-    Renders the real XML at reduced resolution through the XLA wavefront
-    (BVH walk) and the cluster-trace path (shim on CPU) and asserts the
-    images match."""
+    Renders the real XML at reduced resolution through the XLA BVH walk
+    and the GPU walk kernel (interpret mode) and asserts the images
+    match."""
     from kazen_tpu.scene import xml_io
     from kazen_tpu.scene.compiler import compile_scene
-    from kazen_tpu.integrate.render import render
 
-    imgs = {}
-    for pallas in (False, True):
-        desc = xml_io.load_xml(WARMSTUDIO_XML)
-        desc.camera.width = 96
-        desc.camera.height = 54
-        assert desc.rfilter.kind == "mitchell"
-        os.environ["KAZEN_PALLAS_TRACE"] = "1" if pallas else "0"
-        try:
-            arrays, static = compile_scene(desc)
-        finally:
-            del os.environ["KAZEN_PALLAS_TRACE"]
-        assert (arrays.trace_tables is not None) == pallas
-        if not pallas:
-            assert arrays.F.shape[0] > 100  # real OBJ geometry loaded
-        imgs[pallas] = np.asarray(render(arrays, static, spp=2))
+    desc = xml_io.load_xml(WARMSTUDIO_XML)
+    desc.camera.width = 96
+    desc.camera.height = 54
+    assert desc.rfilter.kind == "mitchell"
+    arrays, static = compile_scene(desc)
+    assert arrays.F.shape[0] > 100  # real OBJ geometry loaded
+    imgs = _render_both(arrays, static, monkeypatch)
     assert np.isfinite(imgs[True]).all()
     assert imgs[True].mean() > 0.01  # light array illuminates the set
     bad, worst = _bad_frac(imgs[True], imgs[False], atol=2e-3)

@@ -6,9 +6,9 @@ prefix are provably inert, so the image must equal the lax.scan
 driver's at equal (sampler, spp, seed) to float-ulp level (the two
 drivers compile the same bounce ops in different programs, so XLA may
 reassociate/fuse differently; semantics are identical). Covers:
-  - a multi-cluster scene (narrowing active, several menu widths hit)
-  - the hero XML through the cluster-trace shim (the bench configuration)
-  - a single-cluster scene (_ordering_useful False -> full-width fallback)
+  - a BVH scene (narrowing active, several menu widths hit)
+  - the hero XML (when the reference tree is present)
+  - a brute-force scene (_ordering_useful False -> full-width fallback)
 """
 import os
 
@@ -26,8 +26,9 @@ def _li_both(arrays, static, n_lanes=None):
     from kazen_tpu.core import rng
     from kazen_tpu.integrate import camera as camera_mod
     from kazen_tpu.integrate.path_mis import li_wavefront
+    from kazen_tpu.integrate import path_mis
     from kazen_tpu.integrate.render import sampler_spec
-    from kazen_tpu.integrate.staged import li_staged
+    from kazen_tpu.integrate.staged import StagedWavefront
     from kazen_tpu.samplers import streams
 
     spec = sampler_spec(static)
@@ -46,18 +47,26 @@ def _li_both(arrays, static, n_lanes=None):
     stream, ap = streams.next_2d(spec, stream)
     rays = camera_mod.sample_ray(arrays, static, ps, ap)
     _, li_scan, n_scan = li_wavefront(arrays, static, spec, stream, rays)
-    _, li_stag, n_stag = li_staged(arrays, static, spec, stream, rays)
+    sw = StagedWavefront(
+        static, h * w,
+        lambda scene, stream, rays: (
+            path_mis.wavefront_init(scene, static, spec, stream, rays),
+        ),
+        lambda scene, st: path_mis.wavefront_finish(scene, static, st),
+    )
+    (_, li_stag, n_stag), record = sw.run(arrays, spec, stream, rays)
     return (
         np.asarray(li_scan),
         np.asarray(li_stag),
         float(n_scan),
         float(n_stag),
+        record.widths,
     )
 
 
 def test_staged_matches_scan_multicluster():
-    # enough triangles for several clusters -> narrowing is active and
-    # at least one bounce runs at a sub-full menu width
+    # a BVH scene -> narrowing is active and at least one bounce runs at a
+    # sub-full menu width
     from kazen_tpu.scene import description as D
 
     scene = scenes.cornell_box(
@@ -76,16 +85,13 @@ def test_staged_matches_scan_multicluster():
     )
     from kazen_tpu.scene.compiler import compile_scene
 
-    os.environ["KAZEN_PALLAS_TRACE"] = "1"
-    try:
-        arrays, static = compile_scene(scene)
-    finally:
-        del os.environ["KAZEN_PALLAS_TRACE"]
-    assert arrays.trace_tables is not None
-    assert arrays.trace_tables.geo_w.shape[0] > 1
-    li_a, li_b, n_a, n_b = _li_both(arrays, static)
+    arrays, static = compile_scene(scene)
+    assert arrays.bvh is not None
+    li_a, li_b, n_a, n_b, widths = _li_both(arrays, static)
     np.testing.assert_allclose(li_a, li_b, rtol=2e-6, atol=1e-6)
     assert n_a == n_b
+    assert widths[0] == 48 * 48
+    assert min(widths) < widths[0], widths  # narrowing happened
 
 
 @pytest.mark.skipif(
@@ -98,27 +104,21 @@ def test_staged_matches_scan_hero():
     desc = xml_io.load_xml(HERO_XML)
     desc.camera.width = 96
     desc.camera.height = 54
-    os.environ["KAZEN_PALLAS_TRACE"] = "1"
-    try:
-        arrays, static = compile_scene(desc)
-    finally:
-        del os.environ["KAZEN_PALLAS_TRACE"]
-    li_a, li_b, n_a, n_b = _li_both(arrays, static)
+    arrays, static = compile_scene(desc)
+    li_a, li_b, n_a, n_b, _ = _li_both(arrays, static)
     np.testing.assert_allclose(li_a, li_b, rtol=2e-6, atol=1e-6)
     assert n_a == n_b
 
 
 def test_staged_matches_scan_single_cluster_fallback():
-    # 12-tri box: one cluster, _ordering_useful False -> the staged
+    # 12-tri box: brute-force trace, _ordering_useful False -> the staged
     # driver must fall back to full width and still match exactly
     scene = scenes.cornell_box(width=32, height=32, max_depth=4)
     from kazen_tpu.scene.compiler import compile_scene
 
-    os.environ["KAZEN_PALLAS_TRACE"] = "1"
-    try:
-        arrays, static = compile_scene(scene)
-    finally:
-        del os.environ["KAZEN_PALLAS_TRACE"]
-    li_a, li_b, n_a, n_b = _li_both(arrays, static)
+    arrays, static = compile_scene(scene)
+    assert arrays.bvh is None
+    li_a, li_b, n_a, n_b, widths = _li_both(arrays, static)
     np.testing.assert_allclose(li_a, li_b, rtol=2e-6, atol=1e-6)
     assert n_a == n_b
+    assert set(widths) == {32 * 32}  # no narrowing without the permute
